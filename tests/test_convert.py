@@ -3,7 +3,7 @@ test_convert.py``) — scipy and jax.experimental.sparse bridges."""
 import jax.numpy as jnp
 import numpy as np
 
-from paddle_sparse_tpu import (SparseTensor, from_jax_sparse, from_scipy,
+from paddle_sparse_jax import (SparseTensor, from_jax_sparse, from_scipy,
                                to_jax_sparse, to_scipy)
 
 

@@ -1,11 +1,11 @@
-"""PaddedCOO (static-shape jit core) coverage — the TPU compute path the
+"""PaddedCOO (static-shape jit core) coverage — the device compute path the
 reference has no analogue of (SURVEY.md §7 design note 1)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from paddle_sparse_tpu import SparseTensor
-from paddle_sparse_tpu.core import PaddedCOO
+from paddle_sparse_jax import SparseTensor
+from paddle_sparse_jax.core import PaddedCOO
 
 
 def _mat():

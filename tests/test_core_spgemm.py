@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from paddle_sparse_tpu import SparseTensor
-from paddle_sparse_tpu.core import PaddedCOO, spspmm_padded
+from paddle_sparse_jax import SparseTensor
+from paddle_sparse_jax.core import PaddedCOO, spspmm_padded
 
 rng = np.random.default_rng(21)
 
@@ -65,9 +65,9 @@ def test_padded_spgemm_grad():
 def test_plan_spgemm_capacities():
     """plan_spgemm returns sufficient static capacities (VERDICT r1 #8)."""
     import numpy as np
-    from paddle_sparse_tpu.core import PaddedCOO
-    from paddle_sparse_tpu.core.spgemm import spspmm_padded
-    from paddle_sparse_tpu.ops.spspmm import plan_spgemm
+    from paddle_sparse_jax.core import PaddedCOO
+    from paddle_sparse_jax.core.spgemm import spspmm_padded
+    from paddle_sparse_jax.ops.spspmm import plan_spgemm
 
     rng = np.random.default_rng(5)
     M, nnz = 60, 400
@@ -103,9 +103,9 @@ def test_spgemm_large_coords_x64_off():
     falls back to a two-key lexicographic sort and stays correct."""
     import numpy as np
     import scipy.sparse as sp
-    from paddle_sparse_tpu.core import PaddedCOO
-    from paddle_sparse_tpu.core.spgemm import spspmm_padded
-    from paddle_sparse_tpu.ops.spspmm import plan_spgemm
+    from paddle_sparse_jax.core import PaddedCOO
+    from paddle_sparse_jax.core.spgemm import spspmm_padded
+    from paddle_sparse_jax.ops.spspmm import plan_spgemm
 
     x64_was = jax.config.jax_enable_x64
     jax.config.update("jax_enable_x64", False)
@@ -147,10 +147,10 @@ def test_spgemm_large_coords_x64_off():
 def test_spspmm_rowsorted_matches_padded():
     """Batched-row-sort fast path == global-sort ESC == dense oracle."""
     import numpy as np
-    from paddle_sparse_tpu.core import PaddedCOO
-    from paddle_sparse_tpu.core.spgemm import (spspmm_padded,
+    from paddle_sparse_jax.core import PaddedCOO
+    from paddle_sparse_jax.core.spgemm import (spspmm_padded,
                                                spspmm_rowsorted)
-    from paddle_sparse_tpu.ops.spspmm import (plan_spgemm,
+    from paddle_sparse_jax.ops.spspmm import (plan_spgemm,
                                               plan_spgemm_rows)
 
     rng = np.random.default_rng(7)
@@ -202,10 +202,10 @@ def test_spspmm_rowsorted_matches_padded():
 def test_spspmm_rowsorted_grads():
     """Value gradients of the fast path match the global-sort path."""
     import numpy as np
-    from paddle_sparse_tpu.core import PaddedCOO
-    from paddle_sparse_tpu.core.spgemm import (spspmm_padded,
+    from paddle_sparse_jax.core import PaddedCOO
+    from paddle_sparse_jax.core.spgemm import (spspmm_padded,
                                                spspmm_rowsorted)
-    from paddle_sparse_tpu.ops.spspmm import (plan_spgemm,
+    from paddle_sparse_jax.ops.spspmm import (plan_spgemm,
                                               plan_spgemm_rows)
     import dataclasses
 
@@ -236,8 +236,8 @@ def test_spspmm_rowsorted_grads():
 def test_plan_spgemm_rows_skew_fallback():
     """Power-law rows must route to the global-sort path (grid budget)."""
     import numpy as np
-    from paddle_sparse_tpu.core import PaddedCOO
-    from paddle_sparse_tpu.ops.spspmm import plan_spgemm_rows
+    from paddle_sparse_jax.core import PaddedCOO
+    from paddle_sparse_jax.ops.spspmm import plan_spgemm_rows
 
     M = 3000
     # one hot row with 1000 edges, everyone else 1
@@ -256,9 +256,9 @@ def test_spspmm_rowblocked_matches_dense():
     """Row-blocked fast path (round 5): A @ B matches dense across
     block boundaries, value grads flow, overflow flag clean."""
     import numpy as np
-    from paddle_sparse_tpu.core import PaddedCOO
-    from paddle_sparse_tpu.core.spgemm import spspmm_rowblocked
-    from paddle_sparse_tpu.ops.spspmm import plan_spgemm_blocked
+    from paddle_sparse_jax.core import PaddedCOO
+    from paddle_sparse_jax.core.spgemm import spspmm_rowblocked
+    from paddle_sparse_jax.ops.spspmm import plan_spgemm_blocked
 
     rng = np.random.default_rng(7)
     M = 64
@@ -274,7 +274,7 @@ def test_spspmm_rowblocked_matches_dense():
     F, out_cap, MB, EB, BOC = plan_spgemm_blocked(A, A)
     # force several blocks
     MB = 16
-    from paddle_sparse_tpu.ops.spspmm import plan_spgemm_blocked as _p
+    from paddle_sparse_jax.ops.spspmm import plan_spgemm_blocked as _p
     import jax
     eptr = np.asarray(A.rowptr())
     EB = int(max(eptr[np.minimum(np.arange(5) * 16 + 16, M)]
@@ -296,6 +296,6 @@ def test_spspmm_rowblocked_matches_dense():
     got[rc[ok], cc[ok]] = vc[ok]
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     # matches the unblocked fast path exactly in structure
-    from paddle_sparse_tpu.core.spgemm import spspmm_rowsorted
+    from paddle_sparse_jax.core.spgemm import spspmm_rowsorted
     res2 = spspmm_rowsorted(A, A, F, out_cap)
     assert int(res.matrix.nnz) == int(res2.matrix.nnz)

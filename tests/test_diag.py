@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from paddle_sparse_tpu import SparseTensor
+from paddle_sparse_jax import SparseTensor
 
 
 def _mat():

@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 from jax.test_util import check_grads
 
-import paddle_sparse_tpu as psp
-from paddle_sparse_tpu.ops.spmm import spmm_coo
-from paddle_sparse_tpu.ops.spspmm import spspmm_eager
-from paddle_sparse_tpu.ops.convert import ind2ptr
+import paddle_sparse_jax as psp
+from paddle_sparse_jax.ops.spmm import spmm_coo
+from paddle_sparse_jax.ops.spspmm import spspmm_eager
+from paddle_sparse_jax.ops.convert import ind2ptr
 
 rng = np.random.default_rng(17)
 
@@ -102,7 +102,7 @@ def test_sparse_dense_mul_grads():
 
 def test_padded_spmm_grads():
     """Grads flow through the padded (jit) representation too."""
-    from paddle_sparse_tpu.core import PaddedCOO
+    from paddle_sparse_jax.core import PaddedCOO
     adj = PaddedCOO.from_arrays(row_j, col_j, val0, (M, N),
                                 capacity=nnz + 13)
 

@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import scipy.sparse
 
-from paddle_sparse_tpu import SparseTensor, matmul, spmm, spspmm
-from paddle_sparse_tpu.ops.spmm import spmm_coo
+from paddle_sparse_jax import SparseTensor, matmul, spmm, spspmm
+from paddle_sparse_jax.ops.spmm import spmm_coo
 
 rng = np.random.default_rng(7)
 

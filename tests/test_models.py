@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from paddle_sparse_tpu import SparseTensor
-from paddle_sparse_tpu.core import PaddedCOO
-from paddle_sparse_tpu.models import (APPNP, GAT, GCN, GIN, GraphSAGE,
+from paddle_sparse_jax import SparseTensor
+from paddle_sparse_jax.core import PaddedCOO
+from paddle_sparse_jax.models import (APPNP, GAT, GCN, GIN, GraphSAGE,
                                       edge_softmax, gcn_normalize,
                                       init_appnp, init_gat, init_gcn,
                                       init_gin, init_sage)

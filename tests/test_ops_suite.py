@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from paddle_sparse_tpu import (SparseTensor, cat, coalesce, eye, transpose)
-from paddle_sparse_tpu.testing import (devices, dtypes, maybe_skip_testing,
+from paddle_sparse_jax import (SparseTensor, cat, coalesce, eye, transpose)
+from paddle_sparse_jax.testing import (devices, dtypes, maybe_skip_testing,
                                        set_testing_device, tensor)
 
 

@@ -5,7 +5,7 @@ import numpy as np
 import scipy.sparse
 import scipy.sparse.csgraph
 
-from paddle_sparse_tpu import SparseTensor, partition, reverse_cuthill_mckee
+from paddle_sparse_jax import SparseTensor, partition, reverse_cuthill_mckee
 
 
 def _ring_of_cliques(num_cliques=4, clique=5):
@@ -80,7 +80,7 @@ def test_edge_cut_fraction_quality():
     graph the region grower must beat a random partition decisively; on
     an unstructured power-law graph it must not be (meaningfully) worse
     than random — there is nothing to exploit there."""
-    from paddle_sparse_tpu.partition import (edge_cut_fraction,
+    from paddle_sparse_jax.partition import (edge_cut_fraction,
                                              partition_clusters,
                                              random_cut_fraction)
 

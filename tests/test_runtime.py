@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from paddle_sparse_tpu import runtime
+from paddle_sparse_jax import runtime
 
 pytestmark = pytest.mark.skipif(not runtime.available(),
                                 reason="native runtime not built")
@@ -75,9 +75,10 @@ def test_native_partition_balanced():
 
 
 def test_compat_check():
-    from paddle_sparse_tpu import runtime
+    from paddle_sparse_jax import runtime
     info = runtime.compat_check()
-    assert info["pallas_tpu"] is True
+    assert info["platform"] == "cpu"
+    assert info["kernel_route"] == "interpret"
     assert "jax" in info and "jaxlib" in info
 
 
@@ -88,7 +89,7 @@ def test_deterministic_bitwise():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from paddle_sparse_tpu.core import PaddedCOO
+    from paddle_sparse_jax.core import PaddedCOO
 
     rng = np.random.default_rng(9)
     M = N = 128

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from paddle_sparse_tpu import SparseTensor, sample, sample_adj, saint_subgraph
-from paddle_sparse_tpu.rw import random_walk
+from paddle_sparse_jax import SparseTensor, sample, sample_adj, saint_subgraph
+from paddle_sparse_jax.rw import random_walk
 
 
 def test_sample():
@@ -46,7 +46,7 @@ def test_sample_adj():
 
 def test_sample_adj_padded_jit():
     """The jittable fixed-fanout sampler: set-consistency with the graph."""
-    from paddle_sparse_tpu.ops.sample import sample_adj_padded
+    from paddle_sparse_jax.ops.sample import sample_adj_padded
     adj_t = _toy_adj()
     rowptr, col, _ = adj_t.csr()
     subset = jnp.arange(2, 6)
@@ -105,8 +105,8 @@ def test_slow_path_sampler_warns(monkeypatch):
     a silent 100x slowdown)."""
     import pytest
 
-    from paddle_sparse_tpu import runtime
-    from paddle_sparse_tpu.sample import sample_adj as sample_adj_fn
+    from paddle_sparse_jax import runtime
+    from paddle_sparse_jax.sample import sample_adj as sample_adj_fn
 
     monkeypatch.setattr(runtime, "available", lambda: False)
     mat = SparseTensor(

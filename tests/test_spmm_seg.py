@@ -1,12 +1,11 @@
-"""Source-blocked SpMM (ops/spmm_seg.py): correctness + gradients on CPU
-interpret mode with tiny segments (the TPU geometry is exercised by
-bench.py)."""
+"""Source-blocked SpMM (ops/spmm_seg.py): correctness + gradients on the
+CPU (kernel in interpret mode) with tiny segments."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from paddle_sparse_tpu.ops.spmm_seg import (make_seg_plan, pack_values,
+from paddle_sparse_jax.ops.spmm_seg import (make_seg_plan, pack_values,
                                             spmm_seg, unpack_values)
 
 rng = np.random.default_rng(11)
@@ -52,7 +51,7 @@ def test_seg_forward_no_value():
 
 
 def test_seg_grads_match_xla():
-    from paddle_sparse_tpu.ops.spmm import spmm_coo
+    from paddle_sparse_jax.ops.spmm import spmm_coo
     M, N, nnz, K = 280, 360, 2600, 64
     row, col = _graph(M, N, nnz)
     val = rng.standard_normal(nnz).astype(np.float32)

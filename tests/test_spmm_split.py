@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from paddle_sparse_tpu.ops.spmm_split import (make_split_plan,
+from paddle_sparse_jax.ops.spmm_split import (make_split_plan,
                                               pack_values_split,
                                               spmm_split,
                                               unpack_values_split)
@@ -31,8 +31,7 @@ def test_split_matches_dense_and_grads():
     X = rng.standard_normal((M, K)).astype(np.float32)
 
     plan, s = make_split_plan(jnp.asarray(row), jnp.asarray(col), M, M,
-                              feat_dim=K, block=32, sr=32,
-                              chunk_edges=256)
+                              feat_dim=K, block=32, sr=32)
     assert int(s.idx_local.shape[0]) > 0
     assert int(s.idx_resid.shape[0]) > 0
     packed = pack_values_split(s, jnp.asarray(val))

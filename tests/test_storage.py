@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from paddle_sparse_tpu.ops.convert import ind2ptr, ptr2ind
-from paddle_sparse_tpu.storage import SparseStorage
-from paddle_sparse_tpu.testing import (devices, dtypes, maybe_skip_testing,
+from paddle_sparse_jax.ops.convert import ind2ptr, ptr2ind
+from paddle_sparse_jax.storage import SparseStorage
+from paddle_sparse_jax.testing import (devices, dtypes, maybe_skip_testing,
                                        set_testing_device, tensor)
-from paddle_sparse_tpu.utils import same_buffer
+from paddle_sparse_jax.utils import same_buffer
 
 
 @pytest.mark.parametrize("device", devices)

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from paddle_sparse_tpu import SparseTensor
-from paddle_sparse_tpu.testing import (devices, grad_dtypes,
+from paddle_sparse_jax import SparseTensor
+from paddle_sparse_jax.testing import (devices, grad_dtypes,
                                        maybe_skip_testing, set_testing_device)
 
 rng = np.random.default_rng(1234)
